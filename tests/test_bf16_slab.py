@@ -5,12 +5,9 @@ pad, so its visit set is a strict SUPERSET of the f32 walk's and the
 closest-hit fold (f32 Moller-Trumbore, unchanged) sees every candidate
 the f32 walk sees.
 
-MEASURED-NEGATIVE knob (round 5, kept off): on TPU at the production
-config-3 bounce shape the per-step cost drops ~9% (141 -> 128 us at
-B=8192 x P=16 x fronts=2) but the pad inflates the t-window by ~2-3%
-of |t| which costs +18% visits on small far boxes — net 0.93x.  See
-docs/ARCHITECTURE.md rule 39; the knob and this gate are the recorded
-measurement."""
+Default off: the pad inflates the t-window, which costs extra visits
+on small far boxes (docs/ARCHITECTURE.md rule 39; unmeasured on the
+GPU).  The knob and this gate stay until the GPU sweep decides it."""
 
 import numpy as np
 import pytest

@@ -3,9 +3,9 @@
 
 ``fronts=F`` drains each packet's shared deferred-children stack F
 nodes per while-loop iteration through one (F*B,)-row gather — the
-gather-latency-hiding lever for incoherent bounce waves (measured
-motivation: tools/exp_dualfront.py — two independent node rows in ONE
-gather cost 1.42x one row, not 2x; ARCHITECTURE.md rule 32).  Visit
+gather-latency-hiding lever for incoherent bounce waves (two
+independent node rows fetched in ONE gather instead of two chained
+ones; ARCHITECTURE.md rule 32).  Visit
 ORDER changes (and best_t pruning may lag a sibling front by one
 iteration, so visits form a superset), but each ray's result is a
 min-fold over its own intersecting candidates with the exact

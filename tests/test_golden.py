@@ -161,3 +161,27 @@ def test_arrange_around_y():
         for j in range(i + 1, 4):
             d = np.hypot(*(centers[i, [0, 2]] - centers[j, [0, 2]]))
             assert d > 1.9  # 2 * half-extent(1.0) with margin
+
+
+@pytest.mark.parametrize("spp,shadow", [(1, True), (2, False), (4, True)])
+def test_sample_pixel_parity_replays_device_jitter(spp, shadow):
+    """The sampled-pixel oracle replays the device frame's stratified
+    camera jitter at any spp (Whitted integrator), so a device frame
+    agrees with it pixel for pixel."""
+    from vortex_rt_tpu.engine.wavefront import WavefrontRenderer
+    from vortex_rt_tpu.golden.renderer import sample_pixel_parity
+    from vortex_rt_tpu.models.procedural import cornell_box
+    from vortex_rt_tpu.models.scene import RenderParams, Scene
+    from vortex_rt_tpu.utils.config import RTConfig
+
+    sc = Scene()
+    for mesh, refl in cornell_box():
+        sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+    cfg = RTConfig(flatten=True)
+    sb = sc.build(cfg)
+    cam = Scene.framing_camera(sb, 45.0, 1.0)
+    p = RenderParams(max_depth=2, spp=spp, shadow=shadow,
+                     light_pos=(0, 0.8, -0.5))
+    img, _ = WavefrontRenderer.from_buffers(sb, cfg).render(cam, p, 16, 16)
+    rmse, _, _ = sample_pixel_parity(sb, cam, p, 16, 16, img, n=48, seed=3)
+    assert rmse < 3e-3

@@ -116,11 +116,9 @@ def test_compact_div_trace_bit_identical(rng):
 def test_bounce_sort_seg_frame_bit_identical(rng):
     """RTConfig.bounce_sort_seg (segmented direction-octant regrouping
     of bounce waves, round 5): bit-identical frames at any segment size.
-    MEASURED-NEGATIVE knob (default off): at the production config-3
-    shape every segment size ran 0.7-0.8x the unsorted wave and RAISED
-    the straggler-max step count (tools/exp_sort.py --segs, extending
-    rule 23's global-octant kill) — kept as the recorded measurement.
-    The identity argument is packet composition only, same as live_sort
+    Default off (ARCHITECTURE.md rule 38: it raised the straggler-max
+    step count at the config-3 shape; unmeasured on the GPU).  The
+    identity argument is packet composition only, same as live_sort
     above."""
     from vortex_rt_tpu.engine.wavefront import WavefrontRenderer
     from vortex_rt_tpu.models.scene import Camera  # noqa: F401

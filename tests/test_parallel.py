@@ -68,3 +68,16 @@ def test_tiled_wavefront_matches_single():
     assert total == nrays
     bad = np.abs(img_tiled - img_single).max(-1) > 1e-4
     assert bad.mean() < 0.02
+
+
+def test_dryrun_needs_devices_and_never_switches_platform():
+    """dryrun runs on the devices the process has: asking for more than
+    the 8 virtual CPU devices raises instead of re-initialising JAX."""
+    import pytest
+
+    from vortex_rt_tpu.parallel.tiles import dryrun
+
+    before = (jax.default_backend(), len(jax.devices()))
+    with pytest.raises(ValueError):
+        dryrun(16)
+    assert (jax.default_backend(), len(jax.devices())) == before

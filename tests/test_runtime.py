@@ -182,3 +182,18 @@ def test_cli_scope_trace(tmp_path):
     xs = sorted((e["ts"], e["dur"]) for e in evs if e["ph"] == "X")
     for (t0, d0), (t1, _) in zip(xs, xs[1:]):
         assert abs((t0 + d0) - t1) < 1e-6
+
+
+@pytest.mark.parametrize("backend", ["gpu", "cuda", "nope"])
+def test_dev_open_without_that_backend_raises(backend):
+    """No silent fallback: a backend this host lacks (the suite runs on
+    CPU only) or does not know raises DeviceError."""
+    with pytest.raises(DeviceError):
+        dev_open(backend)
+
+
+def test_require_accelerator_refuses_cpu():
+    from vortex_rt_tpu.runtime.device import require_accelerator
+
+    with pytest.raises(DeviceError):
+        require_accelerator()

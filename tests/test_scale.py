@@ -6,7 +6,7 @@ host render of the identical code compared by image (raycast
 tracer.cpp:226-263).  Full-frame brute-force parity is O(R*T) and
 unusable at these triangle counts, so these tests use the sampled-pixel
 oracle (golden.renderer.sample_pixel_parity) at reduced resolution; the
-real-hardware 1080p runs live in tools/bench_ladder.py (BENCH_LADDER.json).
+1080p runs on the card are chip_smoke.py and tools/bench_ladder.py.
 """
 
 import numpy as np

@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from vortex_rt_tpu.engine.megakernel import (
     CameraArrays, MegakernelRenderer, generate_camera_rays,
@@ -138,7 +139,7 @@ def test_wavefront_nonmultiple_pool():
 
 
 def test_chunked_mode_matches_fused():
-    """The host-orchestrated TPU path must agree with the fused one-jit
+    """The host-orchestrated chunked path must agree with the fused one-jit
     path (only compilation structure differs)."""
     sc = _cornell_scene()
     sb = sc.build()
@@ -306,3 +307,61 @@ def test_merged_shadow_bounce_wave_bitwise():
     np.testing.assert_allclose(np.asarray(img_m), np.asarray(img_s),
                                atol=5e-7, rtol=5e-7)
     assert int(rays_m) == int(rays_s)
+
+
+def test_render_burst_rays_equal_sum_of_frames():
+    """One burst program traces exactly the rays of the same frames
+    rendered one by one (seeds seed0..seed0+n-1); spp 2 makes every
+    frame's jitter, and so its bounce rays, seed-dependent."""
+    from vortex_rt_tpu.engine.megakernel import CameraArrays, LightArrays
+    from vortex_rt_tpu.engine.wavefront import render_burst, render_frame
+
+    sb = _cornell_scene().build(RTConfig(flatten=True))
+    cam = Scene.framing_camera(sb, 45.0, 1.0)
+    r = WavefrontRenderer.from_buffers(sb, RTConfig(flatten=True))
+    p = RenderParams(max_depth=2, spp=2, shadow=True, pathtrace=True)
+    table = r._table_for(p)
+    ca, light = CameraArrays.from_camera(cam), LightArrays.from_params(p)
+    kw = dict(max_depth=2, spp=2, table=table, shadow=True,
+              packet=r.config.packet_size,
+              bounce_packet=r.config.bounce_packet,
+              bounce_fronts=r.config.bounce_fronts, slab=r.config.slab)
+    seed0, n = 5, 3
+    per_frame = [int(render_frame(r.wa, r.sa, ca, light, 16, 16, seed=s,
+                                  **kw)[1])
+                 for s in range(seed0, seed0 + n)]
+    burst = int(render_burst(r.wa, r.sa, ca, light, 16, 16, n_frames=n,
+                             seed0=seed0, **kw))
+    assert burst == sum(per_frame)
+    assert len(set(per_frame)) > 1 or per_frame[0] > 16 * 16 * 2
+
+
+@pytest.mark.parametrize("shadow", [False, True])
+def test_alpha_cutout_matches_golden_oracle(shadow):
+    """The golden oracle's alpha predicate (golden.alpha_keep) reproduces
+    the device's in-loop alpha any-hit frame, shadow rays included."""
+    from vortex_rt_tpu.engine.shaders import alpha_test_anyhit
+    from vortex_rt_tpu.golden.renderer import alpha_keep
+    from vortex_rt_tpu.models.procedural import checkerboard_texture
+
+    tex = checkerboard_texture(n=2, c0=0xFFFFFF, c1=0x000000, cell=2)
+    sc = Scene()
+    front = quad((-1, -1, 0), (1, -1, 0), (1, 1, 0), (-1, 1, 0),
+                 Material(diffuse=(1, 1, 1), diffuse_tex=tex))
+    back = quad((-2, -2, 1.5), (2, -2, 1.5), (2, 2, 1.5), (-2, 2, 1.5),
+                Material(diffuse=(0.9, 0.05, 0.05)))
+    sc.add_instance(sc.add_mesh(front))
+    sc.add_instance(sc.add_mesh(back))
+    cfg = RTConfig(flatten=True)
+    sb = sc.build(cfg)
+    cam = Camera.look_at([0.0, 0.0, -2.5], [0, 0, 0], [0, 1, 0], 45.0, 1.0)
+    p = RenderParams(max_depth=2, shadow=shadow, light_pos=(0, 0, -3))
+    w = h = 32
+    r = WavefrontRenderer.from_buffers(
+        sb, cfg, table=ShaderTable(anyhit=alpha_test_anyhit(0.1)))
+    img, _ = r.render(cam, p, w, h)
+    gold = render_golden(sb, cam, p, w, h, rays=_device_rays(cam, w, h),
+                         keep=alpha_keep(sb, 0.1))
+    solid = render_golden(sb, cam, p, w, h, rays=_device_rays(cam, w, h))
+    assert rmse(img, gold) < 3e-3
+    assert rmse(gold, solid) > 1e-2  # the cutout changes the image

@@ -19,9 +19,10 @@ Usage:
 """
 import argparse
 import json
+import pathlib
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 from vortex_rt_tpu.utils.cache import enable_persistent_cache
 
@@ -47,6 +48,16 @@ def main():
     a = ap.parse_args()
 
     import os
+
+    import jax
+
+    from vortex_rt_tpu.runtime.device import card_info, require_accelerator
+
+    # the staged ms profile is a device timing: it needs the GPU.  The
+    # PacketStats counts (--stats-only) are platform-independent.
+    if not a.stats_only:
+        require_accelerator()
+    dev = jax.devices()[0]
 
     from vortex_rt_tpu.engine.wavefront import WavefrontRenderer
     from vortex_rt_tpu.models.scene import Camera, RenderParams, Scene
@@ -99,7 +110,9 @@ def main():
                depth=a.depth, shadow=a.shadow,
                pathtrace=a.pathtrace,
                bvh_width=cfg.bvh_width, fused_rows=cfg.fused_rows,
-               bounce_packet=cfg.bounce_packet)
+               bounce_packet=cfg.bounce_packet,
+               platform=dev.platform, device_kind=dev.device_kind,
+               card=card_info())
     print(json.dumps(hdr), flush=True)
 
     pt = r.perf_trace(cam, params, a.width, a.height)

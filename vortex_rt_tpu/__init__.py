@@ -1,13 +1,14 @@
-"""vortex_rt_tpu — a TPU-native wavefront path tracer.
+"""vortex_rt_tpu — a wavefront path tracer in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the
+A ground-up JAX/XLA re-design of the capabilities of the
 LazyLatte/vortex-raytracing reference (a Vortex RISC-V GPGPU fork whose simx
 simulator adds a hardware ray-tracing unit).  Instead of simulating a GPU, we
-map the reference's render loop onto TPU hardware:
+map the reference's render loop onto array programs that XLA compiles for
+the accelerator (an NVIDIA H100; CPU for tests):
 
   * scene/asset pipeline (OBJ + MTL + textures)         -> ``io``, ``models``
   * binned-SAH binary BVH + 4-wide quantized TLAS/BLAS  -> ``accel``
-  * traceRay / BVH traversal / Moller-Trumbore          -> ``ops`` (jit + Pallas)
+  * traceRay / BVH traversal / Moller-Trumbore          -> ``ops`` (jit)
   * RTU shader queues (miss/closest/any-hit regrouping) -> ``engine.wavefront``
   * host driver / DCR config                            -> ``runtime``
   * multi-core tiling -> multi-chip ``shard_map``       -> ``parallel``

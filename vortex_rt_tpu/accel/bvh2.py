@@ -3,7 +3,7 @@
 Capability match for the reference's per-mesh BVH builder
 (tests/regression/raytracing/bvh.cpp:30-213: top-down, binned SAH with
 BINS=8 over all 3 axes, cost = leftArea*leftCount + rightArea*rightCount,
-leaf when no improving split).  Two deliberate departures for TPU:
+leaf when no improving split).  Two deliberate departures for the device:
 
 * The reference reorders the triangle arrays in place
   (bvh.cpp:111-133 partitionTriangles); we instead emit a permutation

@@ -24,7 +24,7 @@ packet-steps at radius 16 (1.23x at radius 8) vs 2.07x for v2, with
 leaf-row counts matching the SAH builder (30.3k vs 29.3k; the cut-leaf
 variant emitted 99.5k).  tests/test_ploc.py gates <= 1.5x HARD.
 
-TPU shape discipline: one `lax.while_loop` whose state is fixed-size
+Static-shape discipline: one `lax.while_loop` whose state is fixed-size
 (l,) arrays + a traced live-cluster count; each iteration computes all
 (l, radius) windowed pair costs as shifted vector ops, merges mutual
 nearest neighbors with prefix-sum slot allocation, and compacts

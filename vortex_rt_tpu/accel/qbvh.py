@@ -22,7 +22,7 @@ class of tree, one builder to maintain, and the binary tree stays available
 as the traversal oracle.
 
 Device layout is SoA arrays sized for ONE gather per hot field per
-traversal step (see ops.traverse_wide for why that matters on TPU).
+traversal step (see ops.traverse_wide for why that matters).
 """
 
 from __future__ import annotations

@@ -12,8 +12,10 @@ Usage:  python -m vortex_rt_tpu.cli -m cornell -w 256 -h 256 -o out.ppm
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
+from typing import Any, Optional
 
 import numpy as np
 
@@ -63,7 +65,32 @@ def build_scene(model: str):
     return sc
 
 
-def main(argv=None) -> int:
+@dataclasses.dataclass
+class CliRun:
+    """What one CLI render produced, for in-process callers (``run``)."""
+
+    sb: Any                 # host SceneBuffers the device path traced
+    cam: Any                # Camera
+    params: Any             # RenderParams
+    renderer: Any           # device renderer (None for the -c golden path)
+    img: np.ndarray         # (H, W, 3) float radiance
+    nrays: int
+    seconds: float          # first render, compilation included
+    compare_rmse: Optional[float] = None   # set by --compare
+    compare_ok: Optional[bool] = None
+
+
+def _backend_live() -> bool:
+    """Whether this process already holds a JAX backend (and so, on a
+    GPU host, most of the card's memory)."""
+    if "jax" not in sys.modules:
+        return False
+    from jax._src import xla_bridge
+
+    return xla_bridge.backends_are_initialized()
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("-m", "--model", default="cornell")
     ap.add_argument("-w", "--width", type=int, default=256)
@@ -102,10 +129,20 @@ def main(argv=None) -> int:
     ap.add_argument("--compare", action="store_true",
                     help="also render on the CPU golden oracle and report "
                          "the pixel RMSE (the reference's -c cross-check)")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = _parser()
     args = ap.parse_args(argv)
     if args.ladder is not None:
         # one-line launch for the BASELINE configs (main.cpp's app IS its
-        # CLI; ladder configs are the flagship feature matrix)
+        # CLI; ladder configs are the flagship feature matrix).  The
+        # ladder runs in a child process, which needs the card to itself:
+        # a JAX process reserves most of the card's memory at start-up.
+        if _backend_live():
+            ap.error("--ladder must start from a process that has not "
+                     "initialised JAX (the child needs the card)")
         import pathlib
         import subprocess
 
@@ -113,6 +150,22 @@ def main(argv=None) -> int:
         return subprocess.call(
             [sys.executable, str(root / "tools" / "bench_ladder.py"),
              "--configs", args.ladder])
+    _run(ap, args)
+    return 0
+
+
+def run(argv=None) -> CliRun:
+    """Parse ``argv`` exactly like ``main`` and render in this process;
+    returns the scene, renderer, image and timing (``--ladder`` is not
+    accepted here)."""
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.ladder is not None:
+        ap.error("--ladder runs only through main()")
+    return _run(ap, args)
+
+
+def _run(ap: argparse.ArgumentParser, args) -> CliRun:
     for name in ("width", "height", "spp", "depth"):
         if getattr(args, name) < 1:
             ap.error(f"--{name} must be >= 1")
@@ -143,6 +196,7 @@ def main(argv=None) -> int:
     params = RenderParams(spp=args.spp, max_depth=args.depth,
                           shadow=args.shadow, pathtrace=args.pathtrace)
 
+    r = None
     t0 = time.perf_counter()
     if args.cpu:
         if args.pathtrace:
@@ -183,6 +237,8 @@ def main(argv=None) -> int:
     print(f"rendered {args.width}x{args.height} spp={args.spp} depth={args.depth} "
           f"model={args.model} engine={'cpu' if args.cpu else args.engine}: "
           f"{dt*1e3:.1f} ms, {nrays} rays, {mrays:.2f} Mrays/s -> {args.output}")
+    out = CliRun(sb=sb, cam=cam, params=params, renderer=r, img=img,
+                 nrays=int(nrays), seconds=dt)
     if args.compare and not args.cpu:
         from vortex_rt_tpu.golden.renderer import (
             render_golden, render_golden_pt,
@@ -212,7 +268,8 @@ def main(argv=None) -> int:
         # isolated exact-tie seam pixels may legitimately differ between
         # compilations (see tests/test_megakernel.py); the gate is RMSE
         # or, failing that, <1% differing pixels
-        ok = err <= 2e-3 or bad < 0.01
+        ok = bool(err <= 2e-3 or bad < 0.01)
+        out.compare_rmse, out.compare_ok = float(err), ok
         print(f"COMPARE: rmse={err:.6f} pixels_off={bad:.5f} "
               f"({'PASS' if ok else 'FAIL'}: rmse<=2e-3 or <1% seam px)")
     if args.perf:
@@ -233,7 +290,7 @@ def main(argv=None) -> int:
         r.scope_trace(cam, params, args.width,
                       args.height).save(args.scope_out)
         print(f"scope -> {args.scope_out}")
-    return 0
+    return out
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Megakernel renderer: one fused jit for the whole frame.
 
-This is the "minimum end-to-end TPU slice" (SURVEY.md section 7 phase 3) and
+This is the "minimum end-to-end device slice" (SURVEY.md section 7 phase 3) and
 the functional analog of the raycast app's software render loop
 (tests/regression/raycast/render.h Trace + kernel main): generate camera
 rays, trace, shade, bounce, accumulate — but as ONE XLA program over the

@@ -3,7 +3,7 @@
 The reference dispatches per-ray shaders through a table of function
 pointers uploaded as flat binaries (tracer.cpp:118-121 uploads miss/
 closest/anyhit to fixed VMAs; kernel.cpp:86-91 dispatches
-``sbt[type](rayID, arg)``).  The TPU-native equivalent is a table of
+``sbt[type](rayID, arg)``).  The JAX equivalent is a table of
 JAX-traceable *batch* functions: each shader runs over the whole regrouped
 lane batch of its type at once — the dense-warp execution the reference's
 ShaderQueue regrouping works so hard to approximate, obtained for free.
@@ -200,7 +200,7 @@ def alpha_test_anyhit(threshold: float = 0.5):
 
     # declarative marker: the packet engine evaluates this exact test
     # IN-LOOP (trace_packets alpha_ref) instead of falling back to the
-    # ~25x slower per-ray suspension pool; the per-ray facade (rtu.py /
+    # per-ray suspension pool; the per-ray facade (rtu.py /
     # packet=0) still runs the callable through the suspension protocol
     shader.alpha_threshold = float(threshold)
     return shader

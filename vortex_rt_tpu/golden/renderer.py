@@ -51,13 +51,18 @@ def moller_trumbore_np(o, d, v0, v1, v2, eps: float = MT_EPSILON):
 
 
 def brute_force_hits(o: np.ndarray, d: np.ndarray, sb: SceneBuffers,
-                     chunk: int = 4096):
+                     chunk: int = 4096, keep=None):
     """Closest hit per ray over every instance x triangle.
 
     o, d: (R, 3).  Returns dict of (R,) arrays:
     dist, bx, by, bz, tri (global id), inst.  Matches ray_hit_t fields
     (common.h:48-54).  Ties break toward the earlier (instance, triangle),
     matching the strict '<' update in the reference traversal.
+
+    ``keep(tri, bx, by) -> bool`` is an optional stateless any-hit
+    predicate over candidate intersections (see ``alpha_keep``): a
+    rejected candidate is skipped, so the result is the closest
+    ACCEPTED hit — the semantics of a CONT/ACCEPT any-hit shader.
     """
     r = o.shape[0]
     best_t = np.full(r, LARGE_FLOAT, np.float32)
@@ -82,6 +87,12 @@ def brute_force_hits(o: np.ndarray, d: np.ndarray, sb: SceneBuffers,
                 lo[:, None, :], ld[:, None, :],
                 sb.v0[ids][None], sb.v1[ids][None], sb.v2[ids][None],
             )
+            if keep is not None:
+                cand = t < LARGE_FLOAT
+                ok = np.ones_like(cand)
+                ok[cand] = keep(np.broadcast_to(ids[None], t.shape)[cand],
+                                w1[cand], w2[cand])
+                t = np.where(ok, t, LARGE_FLOAT)
             k = np.argmin(t, axis=1)
             tk = t[np.arange(r), k]
             upd = tk < best_t
@@ -198,18 +209,40 @@ def generate_rays(cam: Camera, width: int, height: int):
     return o.reshape(-1, 3), d.reshape(-1, 3)
 
 
-def occlusion_np(p, sb: SceneBuffers, light_pos, eps: float = 1e-3):
+def alpha_keep(sb: SceneBuffers, threshold: float):
+    """Oracle form of ``engine.shaders.alpha_test_anyhit``: keep a
+    candidate hit unless the luminance of its point-sampled surface
+    color (texel, or material diffuse when untextured) is below
+    ``threshold``.  A predicate for ``brute_force_hits(keep=...)``."""
+    thr = np.float32(threshold)
+
+    def keep(tri, bx, by):
+        bz = 1.0 - bx - by
+        uv = (sb.uv1[tri] * bx[:, None] + sb.uv2[tri] * by[:, None]
+              + sb.uv0[tri] * bz[:, None])
+        col = tex_sample_np(uv, sb, sb.mat_id[tri]).astype(np.float32)
+        alpha = (np.float32(0.2126) * col[:, 0]
+                 + np.float32(0.7152) * col[:, 1]
+                 + np.float32(0.0722) * col[:, 2])
+        return ~(alpha < thr)
+
+    return keep
+
+
+def occlusion_np(p, sb: SceneBuffers, light_pos, eps: float = 1e-3,
+                 keep=None):
     """Shadow test: is the light visible from p?  Brute force (oracle)."""
     l = light_pos - p
     dist = np.asarray(vm.length(l))
     d = l / np.maximum(dist, 1e-20)[..., None]
     o = p + d * eps
-    sh = brute_force_hits(o.astype(np.float32), d.astype(np.float32), sb)
+    sh = brute_force_hits(o.astype(np.float32), d.astype(np.float32), sb,
+                          keep=keep)
     return sh["dist"] < dist * (1.0 - 1e-3)
 
 
 def shade_hits(o, d, hits, sb: SceneBuffers, params: RenderParams,
-               bilinear: bool = False):
+               bilinear: bool = False, keep=None):
     """One bounce of the Trace() loop body on arrays of rays with hit info.
 
     Returns (diffuse_contrib (R,3), reflectivity (R,), hit_mask (R,),
@@ -242,7 +275,7 @@ def shade_hits(o, d, hits, sb: SceneBuffers, params: RenderParams,
     )
     if getattr(params, "shadow", False):
         occluded = occlusion_np(p, sb, np.asarray(params.light_pos,
-                                                  np.float32))
+                                                  np.float32), keep=keep)
         # remove the direct (attenuated N.L) term where shadowed
         lit_diffuse = diffuse_lighting_np(
             p, n, tex_color,
@@ -376,34 +409,43 @@ def render_golden_pt(sb: SceneBuffers, cam: Camera, params: RenderParams,
 
 def sample_pixel_parity(sb: SceneBuffers, cam: Camera, params: RenderParams,
                         width: int, height: int, img: np.ndarray,
-                        n: int = 1024, seed: int = 0):
+                        n: int = 1024, seed: int = 0, keep=None):
     """Scale-capable fidelity gate: brute-force-render ``n`` randomly
     sampled pixels and compare against the device image ``img`` (H, W, 3).
 
     The full golden render is O(R*T) and cannot run at 1080p over a
     260k-tri scene (~5e11 ray-tri tests); sampling keeps the oracle's
     strictly-stronger-than-BVH property per sampled pixel while bounding
-    cost at O(n*T).  Only valid for spp == 1 (pixel-center rays — the
-    device's stratified jitter is stochastic at spp > 1).
+    cost at O(n*T).  Whitted integrator at any ``params.spp``: the
+    oracle replays the device frame's camera samples (pixel centers at
+    spp 1, the counter-based stratified jitter of frame seed 0 above)
+    and averages them like the device resolve.
 
     Returns (rmse_over_samples, worst_abs_err, (py, px) of the worst
     pixel).  Mirrors the reference's host-vs-device image comparison
     fidelity strategy (raycast/tracer.cpp:226-263) at sampled-pixel
-    granularity.
+    granularity.  ``keep``: optional any-hit predicate (``alpha_keep``).
     """
     rng = np.random.default_rng(seed)
     pix = rng.choice(width * height, size=min(n, width * height),
                      replace=False)
     px = (pix % width).astype(np.int64)
     py = (pix // width).astype(np.int64)
-    x_ndc = (px + 0.5).astype(np.float32) / width - 0.5
-    y_ndc = (py + 0.5).astype(np.float32) / height - 0.5
-    pt = (x_ndc[:, None] * cam.viewplane[0] * cam.right
-          + y_ndc[:, None] * cam.viewplane[1] * cam.up + cam.forward)
-    d = np.asarray(vm.normalize(pt), np.float32)
-    o = np.broadcast_to(cam.pos, d.shape).astype(np.float32)
-    ref = render_golden(sb, cam, params, pix.size, 1, rays=(o, d))
-    ref = ref.reshape(-1, 3)
+    spp = params.spp
+    ref = np.zeros((pix.size, 3), np.float32)
+    for s in range(spp):
+        jx, jy = sampling.stratified_jitter(
+            np, pix.astype(np.uint32), np.full(pix.size, s, np.uint32),
+            spp, 0)
+        x_ndc = (px.astype(np.float32) + jx) / width - 0.5
+        y_ndc = (py.astype(np.float32) + jy) / height - 0.5
+        pt = (x_ndc[:, None] * cam.viewplane[0] * cam.right
+              + y_ndc[:, None] * cam.viewplane[1] * cam.up + cam.forward)
+        d = np.asarray(vm.normalize(pt), np.float32)
+        o = np.broadcast_to(cam.pos, d.shape).astype(np.float32)
+        ref += render_golden(sb, cam, params, pix.size, 1, rays=(o, d),
+                             keep=keep).reshape(-1, 3)
+    ref = ref / np.float32(spp)
     dev = np.asarray(img, np.float32)[py, px]
     err = dev - ref
     rmse = float(np.sqrt((err ** 2).mean()))
@@ -412,9 +454,29 @@ def sample_pixel_parity(sb: SceneBuffers, cam: Camera, params: RenderParams,
                                                    int(px[worst]))
 
 
+def frame_parity(sb: SceneBuffers, cam: Camera, params: RenderParams,
+                 img: np.ndarray, width: int, height: int, n: int = 16,
+                 seed: int = 7, keep=None) -> float:
+    """Sampled-pixel golden RMSE of a device frame rendered at frame
+    seed 0, for either integrator: path-traced frames replay the device
+    sampler (``render_golden_pt``), Whitted frames its camera samples
+    (``sample_pixel_parity``, which also takes the any-hit ``keep``)."""
+    if not getattr(params, "pathtrace", False):
+        return sample_pixel_parity(sb, cam, params, width, height, img,
+                                   n=n, seed=seed, keep=keep)[0]
+    if keep is not None:
+        raise ValueError("the path-traced oracle has no any-hit predicate")
+    pix = np.random.default_rng(seed).choice(
+        width * height, size=min(n, width * height), replace=False)
+    ref = render_golden_pt(sb, cam, params, width, height, seed=0,
+                           pixels=pix)
+    dev = np.asarray(img, np.float32).reshape(-1, 3)[pix]
+    return float(np.sqrt(((dev - ref) ** 2).mean()))
+
+
 def render_golden(sb: SceneBuffers, cam: Camera, params: RenderParams,
                   width: int, height: int, rays=None,
-                  bilinear: bool = False) -> np.ndarray:
+                  bilinear: bool = False, keep=None) -> np.ndarray:
     """Full golden render: (H, W, 3) float32 radiance in [0, inf).
 
     ``rays``: optional (o, d) override so callers can compare against a
@@ -434,9 +496,10 @@ def render_golden(sb: SceneBuffers, cam: Camera, params: RenderParams,
     for bounce in range(params.max_depth):
         if not active.any():
             break
-        hits = brute_force_hits(o, d, sb)
+        hits = brute_force_hits(o, d, sb, keep=keep)
         diffuse, refl, hit, new_o, new_d = shade_hits(o, d, hits, sb, params,
-                                                      bilinear=bilinear)
+                                                      bilinear=bilinear,
+                                                      keep=keep)
 
         miss_now = active & ~hit
         radiance[miss_now] += throughput[miss_now, None] * background

@@ -14,7 +14,7 @@ Capability match for the reference's host scene pipeline
 * The packed result, :class:`SceneBuffers`, is the ``kernel_arg_t`` analog
   (common.h:164-195): one pytree of arrays handed to the device render step.
 
-TPU-first departures: SoA everywhere, textures packed into a single uint32
+Device-first departures: SoA everywhere, textures packed into a single uint32
 texel pool indexed by per-material (offset, w, h) — one flat gather target
 instead of per-mesh pointers.
 """

@@ -104,7 +104,8 @@ class Lanes3(NamedTuple):
 
 
 def _normalize(x, y, z, eps=1e-20):
-    # exact sqrt (lax.rsqrt is approximate on TPU and costs golden parity)
+    # exact sqrt + divide, not lax.rsqrt: an approximate reciprocal
+    # square root would cost golden parity
     inv = 1.0 / jnp.sqrt(x * x + y * y + z * z + eps)
     return x * inv, y * inv, z * inv
 
@@ -147,10 +148,9 @@ def shade_point(sa: ShadeArrays,
     px, py, pz = ox + dx * t, oy + dy * t, oz + dz * t
 
     # gathered records are transposed ONCE and sliced by row: extracting
-    # a column from a (R, 16) gather is a strided cross-lane relayout
-    # (~0.03 ms per column at R=64k on a v5e) while a (16, R) row slice
-    # is free — ARCHITECTURE.md rule 2, same layout trick as the
-    # traversal engines' node fetch
+    # a column from a (R, 16) gather is a strided relayout while a
+    # (16, R) row slice is contiguous — ARCHITECTURE.md rule 2, same
+    # layout trick as the traversal engines' node fetch
     row = sa.shade_rows[tri].T
     # N = N1*bx + N2*by + N0*bz (closest.cpp:71)
     nx = row[3] * bx + row[6] * by + row[0] * bz

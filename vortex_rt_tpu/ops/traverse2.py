@@ -6,12 +6,12 @@ tests/regression/raycast/render.h:74-188): closest-first descent with
 far-child push, TLAS->BLAS instance jump with object-space ray transform,
 Moller-Trumbore leaves, strict '<' hit updates.
 
-TPU-first redesign rather than a port:
+Array-program redesign rather than a port:
 
 * The reference walks one ray per SIMT lane with per-thread stacks in local
   memory.  Here the *whole ray batch* advances in lockstep through one
   ``lax.while_loop`` step machine: every per-ray scalar becomes an (R,)
-  lane vector on the VPU, node fetches become XLA gathers, and the three
+  lane vector, node fetches become XLA gathers, and the three
   node kinds (internal / instance-leaf / triangle-leaf) are evaluated
   masked-parallel instead of branching.
 * TLAS and BLAS nodes are merged into ONE node pool (TLAS at [0, K),

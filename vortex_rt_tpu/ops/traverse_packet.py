@@ -1,9 +1,8 @@
 """Packet traversal: one shared node walk per coherent ray packet.
 
-The per-ray engine (ops.traverse_wide) is bound by per-ray record
-gathers + column extraction (~1.9 ms per step over a 65536-ray pool, see
-docs/ARCHITECTURE.md).  This engine removes that cost with the classic
-SIMD packet transform (Wald-style ray packets, re-shaped for the TPU):
+The per-ray engine (ops.traverse_wide) pays one record gather per ray per
+step.  This engine removes that cost with the classic SIMD packet
+transform (Wald-style ray packets, re-shaped as array programs):
 
 * rays are grouped into packets of P (consecutive pool lanes — pixel-major
   order makes primary packets spatially coherent);
@@ -142,12 +141,10 @@ def _stack_pop_a(st, count, mask):
 _ARRAY_STACK_DEFAULT = __import__("os").environ.get(
     "VORTEX_RT_ARRAY_STACK", "0") == "1"
 
-# while-body unroll factor (sweepable): rule 21 measured the loop body
-# launch/gather-bound (~29 us/step at 32k lanes, ~16x the VPU roofline),
-# so k sub-steps per while iteration trade k-fold fewer fixed
-# per-iteration overheads against a k-fold larger body (compile-basin
-# risk, rule 13).  Bit-identical: a sub-step on a done packet is the
-# identity on every field but the step counter
+# while-body unroll factor (sweepable): k sub-steps per while iteration
+# trade k-fold fewer fixed per-iteration overheads against a k-fold
+# larger body (rule 27).  Bit-identical: a sub-step on a done packet is
+# the identity on every field but the step counter
 _UNROLL_DEFAULT = int(__import__("os").environ.get(
     "VORTEX_RT_UNROLL", "1"))
 
@@ -157,8 +154,8 @@ _COMPACT_DIV_DEFAULT = max(int(__import__("os").environ.get(
     "VORTEX_RT_COMPACT_DIV", "4")), 2)
 
 # conservative bfloat16 child slab test (VORTEX_RT_BF16_SLAB): the slab
-# arithmetic is ~43 us of the ~155 us production iteration (rule 39,
-# tools/exp_body.py) and is memory-shaped — bf16 halves its bytes.
+# arithmetic is a large, memory-shaped part of the loop body (rule 39)
+# — bf16 halves its bytes.
 # Soundness: the test runs in NODE-LOCAL coordinates (ray origin minus
 # node origin, subtracted in f32 per packet — this kills the
 # catastrophic-cancellation hazard of bf16-ing world coordinates), box
@@ -271,9 +268,8 @@ def trace_packets(
     ``fronts=F`` (flat builds only) walks F stack nodes per packet per
     iteration: ONE (F*B,)-row gather + F-axis-batched slab/MT tests
     halve(+) the iteration count of incoherent waves whose per-iteration
-    cost is gather-latency-bound (measured: two independent node-row
-    gathers in one while-iteration cost 1.42x one, not 2x —
-    tools/exp_dualfront.py, ARCHITECTURE.md rule 32).  The fronts drain
+    cost is gather-latency-bound: two node rows fetched in ONE gather
+    instead of two chained ones (ARCHITECTURE.md rule 32).  The fronts drain
     one SHARED per-packet stack, so together they run the same DFS; hits
     are bit-identical (each ray's result is a min-fold over its own
     intersecting candidates with the exact lexicographic tie-break —
@@ -925,9 +921,8 @@ def trace_packets(
             if mixed:
                 occ_pk = s["is_occ"][:, None]
 
-            # ---- ONE gather serves all fronts (the latency win:
-            # tools/exp_dualfront.py — a 2B-row gather costs 1.42x a
-            # B-row one, two separate gathers cost 2.1x) ----
+            # ---- ONE gather serves all fronts (the latency win: one
+            # 2B-row gather instead of two separate B-row gathers) ----
             flat_idx = jnp.concatenate(
                 [jnp.clip(n, 0, n_pool - 1) for n in s["node"]])
             if wa.fused is not None:
@@ -1182,8 +1177,8 @@ def trace_packets(
                 # packet_steps counts live packets x fronts: each live
                 # packet's iteration gathers F node rows, so this is the
                 # row-gather count — directly comparable across fronts
-                # settings (render_stats rays_per_live_packet and
-                # tools/exp_bp.py row arithmetic stay consistent)
+                # settings (render_stats rays_per_live_packet stays
+                # consistent)
                 live = act.sum(dtype=jnp.int32)
                 s["packet_steps"] = s["packet_steps"] + live * fronts
                 s["ray_steps"] = s["ray_steps"] + jnp.float32(fronts) * (

@@ -4,25 +4,23 @@ This is the production traceRay engine: a faithful re-implementation of the
 reference RT unit's traversal algorithm (BVHTraverser,
 sim/simx/rt_traversal.cpp:26-213) — 4-wide quantized two-level TLAS/BLAS,
 far-to-near child ordering, restart trail over 32 levels, 5-entry short
-stack, any-hit suspension — re-expressed in the shapes this TPU is fast at.
-Every rule below was measured on-chip (v5e, see git history):
+stack, any-hit suspension — re-expressed as array programs.  The layout
+rules below (docs/ARCHITECTURE.md rules 1-5) were decided on the earlier
+platform and are unmeasured on the H100:
 
-* ONE 64-byte packed node row per traversal step.  Scalar (N,)->(R,)
-  gathers cost ~0.5 ms inside a loop at R=65536, while a (N,16)-row gather
-  costs ~1 us — so the node is packed into 16 uint32 words exactly like
+* ONE 64-byte packed node row per traversal step: one row gather instead
+  of many scalar gathers — so the node is packed into 16 uint32 words exactly like
   the reference's 64-byte bvh_quantized_node_t (common.h:56-67): fp32
   origin, fp32 per-axis power-of-two scale, per-child 3x-uint8 quantized
   bounds packed one u32 per child, and a meta word
   (kind | nchild | left_first).
-* Everything inside the loop is an (R,) component lane.  (R,3)-shaped
-  vectors map the 3-axis onto the 128-wide vector lane dimension at 2%
-  utilization and made the first implementation ~1000x slower; rays, boxes
-  and barycentrics are therefore separate x/y/z lanes.
+* Everything inside the loop is an (R,) component lane: no array axis
+  of length 3, so rays, boxes and barycentrics are separate x/y/z
+  lanes.
 * The traversal trail (reference: array<u32,32>) is bit-packed 4 bits/
   level into four (R,) uint32 lanes; the 5-entry short stack
   (ShortStack<.,5>, types.h:1809-1840) is a shift register of five (R,)
-  int32 lanes.  Per-lane 2-D indexing ``x[lanes, j]`` costs ~1000x a row
-  gather and appears nowhere.
+  int32 lanes.  Per-lane 2-D indexing ``x[lanes, j]`` appears nowhere.
 * Triangles are pre-gathered into leaf-slot order as (T,16) rows
   (v0, e1, e2, tri-id) so a leaf step is one contiguous row gather;
   instances are (I,16) rows (inverse transform + BLAS root).
@@ -528,15 +526,9 @@ _GATHER_CHUNK = 4096
 
 
 def _gather_rows(tbl, idx):
-    """Row gather with every gather op capped at 4096 indices.
-
-    Measured on v5e: the composed traversal step runs at ~2 us for
-    R <= 4096 and falls off a >100x performance cliff above that, so the
-    engine is fed 4096-ray chunks (see engine.wavefront).  Slicing large
-    index vectors into 4096-chunks here was tried and did NOT recover the
-    fast path (the cliff is in the composed program, not the gather op),
-    so this is a plain gather; the chunking lives at the batch level.
-    """
+    """Row gather (a plain gather: the per-ray engine is fed
+    ``RTConfig.lanes``-sized chunks at the batch level, see
+    engine.wavefront)."""
     return tbl[idx]
 
 
@@ -673,9 +665,8 @@ def trace_lanes(
         active = ~s.done & ~s.suspended
         node = jnp.clip(s.node, 0, n_pool - 1)
         row = _gather_rows(wa.nodes, node)         # (R, 32) — THE node gather
-        # one fused relayout: column extracts from a gathered (R, W) array
-        # cost ~0.03 ms EACH on this hardware; a single transpose then row
-        # slices is ~12x cheaper for a fully-consumed record
+        # one fused relayout: a single transpose then row slices instead
+        # of one strided column extract per field (ARCHITECTURE.md rule 2)
         rowt = row.T                                # (32, R)
         meta = rowt[14]
         kind = (meta >> 29).astype(jnp.int32)

@@ -15,7 +15,7 @@ TWO sp-axis schedules ship (``make_sharded_wavefront(schedule=...)``):
   communication), every peer traces its local sub-scene with the
   unmodified packet engine, and the per-ray closest hits are combined
   with a lexicographic (t, inst, tri) min over the ``sp`` axis — 3
-  ``pmin`` + 4 ``psum`` ICI collectives of slab-sized lanes per wave.
+  ``pmin`` + 4 ``psum`` collectives of slab-sized lanes per wave.
   Occlusion (shadow) waves combine with a single ``pmin``.
 * ``"alltoall"``: the design doc's candidate-routed ray-exchange
   schedule (docs/SCENE_SHARDING.md steps 1-6) — each ray visits only
@@ -23,8 +23,9 @@ TWO sp-axis schedules ship (``make_sharded_wavefront(schedule=...)``):
   real ``lax.all_to_all`` collectives and pruned by best_t between
   waves.  Measured (the doc's accounting section): ~0.66-0.75x the
   replicate schedule's live-ray loop residency at sp=4; the margin
-  grows with sp and per-shard tree depth, so this is the >HBM/many-sp
-  schedule while replicate stays the ICI-minimal default.
+  grows with sp and per-shard tree depth, so this is the
+  beyond-one-device-memory / many-sp schedule while replicate stays the
+  communication-minimal default.
 
 Correctness: instances are partitioned (each owned by exactly one
 shard), so a hit (t, inst, tri) exists on exactly one peer and the
@@ -257,7 +258,7 @@ def make_sharded_wavefront(mesh: Mesh, width: int, height: int,
 
     * ``"replicate"`` (default) — replicate-rays: every sp peer traces
       every ray against its local shard; one lexicographic pmin/psum
-      combine per wave.  ICI-minimal, traversal compute x sp.
+      combine per wave.  Communication-minimal, traversal compute x sp.
     * ``"alltoall"`` — the candidate-routed ray-exchange schedule
       (docs/SCENE_SHARDING.md steps 1-6): each ray's TLAS candidates
       (dense ray-vs-instance-AABB slab tests against the replicated

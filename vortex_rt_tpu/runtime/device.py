@@ -5,10 +5,12 @@ The reference exposes a C driver API (runtime/include/vortex.h): vx_dev_open
 :116, vx_dcr_write :122, vx_upload_kernel_file :133, vx_dump_perf :145 —
 with selectable backends (simx / rtlsim / FPGA) behind one interface.
 
-The TPU-native equivalent wraps the JAX runtime with the same surface:
+This module wraps the JAX runtime with the same surface:
 
-* backends = JAX platforms (cpu = the "simulator" backend, tpu = silicon),
-  selected at open() like VORTEX_DRIVER selects a driver;
+* backends = JAX platforms (``cpu`` = the "simulator" backend, ``gpu`` =
+  the accelerator), selected at open() like VORTEX_DRIVER selects a
+  driver.  Opening a backend the host does not have raises DeviceError:
+  there is no silent fallback to another platform;
 * mem_alloc / copy_to_dev = tracked jax.device_put allocations;
 * dcr_write = a device-configuration register file.  The RT-relevant DCRs
   mirror hw/VX_types.toml:16-19 (RTX TLAS/BLAS/BVH/TRI base "pointers" —
@@ -35,6 +37,10 @@ VX_DCR_BASE_RTX_BVH_PTR = 0x008
 VX_DCR_BASE_RTX_TRI_PTR = 0x009
 
 
+# JAX platforms dev_open accepts (VORTEX_DRIVER analog)
+BACKENDS = ("cpu", "gpu")
+
+
 class DeviceError(RuntimeError):
     pass
 
@@ -43,8 +49,11 @@ class Device:
     """One accelerator context (vx_device analog, runtime/simx/vortex.cpp:49)."""
 
     def __init__(self, backend: Optional[str] = None):
+        if backend is not None and backend not in BACKENDS:
+            raise DeviceError(
+                f"unknown backend {backend!r} (expected one of {BACKENDS})")
         try:
-            self._device = jax.devices(backend)[0] if backend else jax.devices()[0]
+            self._device = jax.devices(backend)[0]
         except RuntimeError as e:
             raise DeviceError(f"cannot open backend {backend!r}: {e}") from e
         self._buffers: Dict[str, jax.Array] = {}
@@ -142,6 +151,36 @@ class Device:
         return self._device.platform
 
 
+def card_info() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them
+    (``name, power.limit`` per line), or ``"not available"`` where the
+    tool is absent.  Every device timing is reported beside this line: a
+    card set below its maximum power runs slower under load."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return "not available"
+    return out.stdout.strip() or "not available"
+
+
+def require_accelerator() -> Dict[str, Any]:
+    """The device a measurement runs on, as JAX reports it; raises
+    DeviceError when JAX found no GPU.  Measurement paths call this
+    first so that no number is ever taken on a CPU fallback."""
+    devs = jax.devices()
+    if devs[0].platform != "gpu":
+        raise DeviceError(
+            f"no GPU found: JAX platform is {devs[0].platform!r}")
+    return dict(platform=devs[0].platform, kind=devs[0].device_kind,
+                count=len(devs))
+
+
 def dev_open(backend: Optional[str] = None) -> Device:
-    """vx_dev_open analog; backend like VORTEX_DRIVER (cpu / tpu / None)."""
+    """vx_dev_open analog; backend like VORTEX_DRIVER: 'cpu', 'gpu', or
+    None for JAX's default platform."""
     return Device(backend)

@@ -1,12 +1,12 @@
 """Framework configuration.
 
-TPU-native analog of the reference's two-TOML config system
+JAX analog of the reference's two-TOML config system
 (``hw/VX_config.toml`` arch knobs + ``hw/VX_types.toml`` address map, compiled
 by ``ci/gen_config.py``).  Knob names mirror the reference where a concept
 carries over (RT_BVH_WIDTH / RT_STACK_SIZE / trail depth / lanes / queue
 capacity, ``hw/VX_config.toml:244-247``, ``sim/simx/rt_traversal.h:9-10``);
-GPU-only knobs (warps, cache geometry) are replaced by TPU-shaped ones
-(ray-batch lanes, tile size, wave count, mesh axes).
+the reference GPU's own knobs (warps, cache geometry) are replaced by
+array-program ones (ray-batch lanes, tile size, wave count, mesh axes).
 """
 
 from __future__ import annotations
@@ -45,93 +45,58 @@ class RTConfig:
     bvh_width: int = 0          # RT_BVH_WIDTH: children per wide-BVH node
                                 # (4 or 8; 8 requires flatten=True).
                                 # 0 = auto: 8 on flattened builds, else 4
-                                # — the round-4 hardware sweep measured
-                                # 8-wide 21% faster at the 1080p bunny
-                                # (2.72 vs 3.18 s/frame with fused rows;
-                                # ARCHITECTURE.md rule 29)
+                                # (ARCHITECTURE.md rule 29)
     stack_size: int = 5         # RT_STACK_SIZE: short-stack entries per ray
     max_trail: int = 32         # MAX_TRAIL_LEVEL (sim/simx/rt_traversal.h:9)
     sah_bins: int = 8           # BINS in binned SAH build (bvh.cpp:135-191)
     max_leaf_tris: int = 4      # leaf size target for the binary BVH
     use_native_build: bool = True  # csrc/ C++ builder when available
     fused_rows: bool = True     # single-gather node+leaf rows on
-                                # flattened builds (WideArrays.fuse):
-                                # the round-4 hardware sweep's decisive
-                                # winner — 27.3 vs 33.7 ms/frame at the
-                                # bench config, 3.18 vs 8.74 s/frame at
-                                # the 1080p bunny (ARCHITECTURE.md rule
-                                # 29).  Ignored on TLAS builds; env
-                                # VORTEX_RT_FUSED_ROWS=0/1 overrides
-                                # (sweep harnesses)
+                                # flattened builds (WideArrays.fuse;
+                                # ARCHITECTURE.md rule 29).  Ignored on
+                                # TLAS builds; env VORTEX_RT_FUSED_ROWS=0/1
+                                # overrides (sweep harnesses)
     flatten: bool = False       # build ONE world-space BVH over all
                                 # instances (transforms baked at build,
                                 # leaf ids packed (inst<<bits)|tri): no
                                 # instance nodes, no local-space lanes in
-                                # the packet loop (~40% less loop state,
-                                # ~18% fewer steps measured).  Static
-                                # scenes only; per-instance materials and
-                                # hit ids are preserved exactly
+                                # the packet loop (less loop state, fewer
+                                # steps).  Static scenes only;
+                                # per-instance materials and hit ids are
+                                # preserved exactly
 
     # ---- wavefront engine (RTU analog) ----
     lanes: int = 32768          # rays per traversal group (NUM_RTU_LANES
-                                # analog): packet groups of lanes/packet_size
-                                # packets exit their loops independently,
-                                # capping lockstep waste (measured sweep)
+                                # analog) for the per-ray engine's chunks
     packet_size: int = 256      # rays per traversal packet (0 = per-ray
-                                # engine); packets share one node walk.
-                                # Round-3 sweep on the slab-major frame:
-                                # 256 w/ 16x16 tiles = 48.4 ms/frame vs
-                                # 54-59 for 64/128 at 512x512 spp2 d2
-                                # (coherent waves amortize the walk over
-                                # more rays; VPU stays full either way)
-    bounce_packet: int = 16    # packet size for bounce (k>0) waves:
+                                # engine); packets share one node walk, so
+                                # coherent waves amortize the walk over
+                                # more rays (one 16x16 pixel tile each)
+    bounce_packet: int = 16     # packet size for bounce (k>0) waves:
                                 # diffuse-bounce directions are incoherent
                                 # and a packet walks its rays' UNION path,
                                 # so bounce waves want tighter packets
                                 # (0 = per-ray engine for bounce waves).
-                                # History: bp=32 won round 4's sweep AT
-                                # slab=32768; the round-5 slab grid
-                                # re-swept bp jointly with slab and at
-                                # the adopted slab=131072 bp=16 wins at
-                                # every point (1.95 vs 2.11 s at the
-                                # config-3 shape — B=slab/bp packets
-                                # walk per iteration, so smaller bp
-                                # ALSO raises the gather batch; rule 34)
+                                # Swept jointly with slab (rule 34): a
+                                # slab of S lanes runs S/bp packets per
+                                # loop iteration
     bounce_fronts: int = 0      # stack nodes walked per packet per loop
                                 # iteration on incoherent (k>0) waves
                                 # (trace_packets fronts; flat builds
-                                # only).  The loop body is gather-
-                                # latency-bound at big trees, and two
-                                # independent node rows fetched in ONE
-                                # (F*B,)-row gather cost 1.42x one row,
-                                # not 2x (tools/exp_dualfront.py) — F
-                                # fronts drain the shared per-packet
-                                # stack F nodes at a time with bit-
+                                # only): F fronts drain the shared
+                                # per-packet stack F nodes at a time in
+                                # one (F*B,)-row gather, with bit-
                                 # identical hits.  0 = auto: env
-                                # VORTEX_RT_FRONTS (sweep harnesses)
-                                # or 2 — the round-5 slab x bp x fronts
-                                # grid measured fronts=2 fastest at
-                                # every (slab, bp) point and fronts=3/4
-                                # flat-to-worse (tools/exp_slab.py,
-                                # ARCHITECTURE.md rule 34)
+                                # VORTEX_RT_FRONTS or 2 (rule 34)
     slab: int = 0               # rays per streamed frame slab (frame_body
                                 # slab-major loop).  Sets the while-loop
-                                # GATHER BATCH: a slab of S lanes at
+                                # gather batch: a slab of S lanes at
                                 # bounce_packet P runs S/P packets per
-                                # loop iteration, and the chained row
-                                # gather costs ~13 us FIXED per iteration
-                                # + ~2.5 ns/row (tools/exp_gather.py,
-                                # rule 33) — bigger slabs amortize the
-                                # fixed latency over more packets.
-                                # Bounded by loop-state memory (~200 B/
-                                # lane) AND by the straggler max (one
-                                # while_loop iterates for its slowest
-                                # packet): the round-5 hardware grid
-                                # (tools/exp_slab.py, rule 34) measured
-                                # a clear optimum at 131072 (config-3
-                                # 1080p: 2.39 s -> 1.95 s/frame with
-                                # bp=16 f2; 262144/524288 REGRESS).
-                                # 0 = auto: env VORTEX_RT_SLAB or 131072
+                                # loop iteration.  Bounded by loop-state
+                                # memory (~200 B/lane) and by the
+                                # straggler max (one while_loop iterates
+                                # for its slowest packet).  0 = auto: env
+                                # VORTEX_RT_SLAB or 131072 (rule 34)
     bounce_sort_seg: int = -1   # SEGMENTED direction-octant regrouping
                                 # of incoherent (k>0) bounce waves:
                                 # stable-sort wave lanes by
@@ -139,45 +104,17 @@ class RTConfig:
                                 # keyed last) before packetization, and
                                 # scatter hits back after.  Packets
                                 # become direction-pure while origins
-                                # stay within an N-lane tile window —
-                                # the middle ground rule 23's GLOBAL
-                                # octant sort (which destroys origin
-                                # locality) never tried.  Bit-identical
-                                # (packet composition only).  0 = off;
-                                # -1 = auto: env VORTEX_RT_SORT_SEG or
-                                # the measured round-5 default
+                                # stay within an N-lane tile window.
+                                # Bit-identical (packet composition
+                                # only).  0 = off; -1 = auto: env
+                                # VORTEX_RT_SORT_SEG or 0 (rule 38)
     shadow_packet: Optional[int] = None  # packet size for shadow
                                 # occlusion waves; None follows each
                                 # bounce's wave packet (primary-size at
-                                # bounce 0, bounce_packet after) - the
-                                # measured optimum; uniform overrides
-                                # swept worse (128: 35.7 ms, 64: 38.0,
-                                # 32: 38.6 vs 34.0 baseline at bench)
+                                # bounce 0, bounce_packet after)
     queue_capacity: int = 1024  # ShaderQueue CAPACITY (sim/simx/types.h:1844)
                                 # — enforced by the RTU facade: bounded
                                 # queues with lossless overflow spill
-    pallas_waves: str = "off"   # which waves use the Mosaic scalar-node-
-                                # walk kernel (ops/pallas/packet_walk):
-                                # 'off' | 'coherent' (bounce-0 waves:
-                                # primary trace + shadow-0 occlusion) |
-                                # 'all'.  Routed by engine.wavefront
-                                # (_wave_pipeline); waves fall back to
-                                # the XLA packet engine unless the TPU
-                                # backend is live (or
-                                # VORTEX_RT_PALLAS_INTERPRET=1), scene
-                                # tables fit the ~12 MB VMEM budget,
-                                # lanes tile into 1024-ray packets,
-                                # bvh_width=4 (the kernel is width-4
-                                # only — pin it; auto resolves to 8 on
-                                # flattened builds), and the wave needs
-                                # no stats/alpha modes.  Scale verdict
-                                # (rule 37, tools/exp_pallas_hbm.py):
-                                # the HBM-resident per-packet walk is
-                                # MEASURED DEAD — scalar-core DMA issue
-                                # (~40-45 ns/walk-step at 32 interleaved
-                                # walks) cannot reach the batched
-                                # gather's ~4 ns/row, so this stays a
-                                # VMEM-scale demonstration path
 
     # ---- render parameters (kernel_arg_t analog, raytracing/common.h:164) ----
     width: int = 256
@@ -224,8 +161,7 @@ class RTConfig:
         assert self.bvh_width == 4 or self.flatten, \
             "bvh_width>4 requires flatten=True (no instance-node rows)"
         # 16 is an experimental packet-engine capability (host builds
-        # only; measured -10% gathered rows at config-3 scale for 2x
-        # slab compute — not adopted, see ARCHITECTURE.md round 5)
+        # only; not adopted, see ARCHITECTURE.md rule 38)
         assert self.max_leaf_tris >= 1
 
     def replace(self, **kw: Any) -> "RTConfig":

@@ -11,7 +11,7 @@ than comparing noisy estimates in expectation.
 
 All functions take uint32 arrays (or python ints) and are pure integer
 arithmetic: no PRNG state threading, no jax.random key plumbing through
-the wavefront loop — ideal for TPU (VPU int ops, fully fused).
+the wavefront loop — plain integer vector ops that XLA fuses.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Vector / matrix math over SoA arrays.
 
-TPU-native replacement for the reference's AoS C++ vector library
+SoA replacement for the reference's AoS C++ vector library
 (tests/regression/raytracing/geometry.h: float3/mat4_t/ray_t/aabb_t, 1469 LoC).
 Instead of a ``float3`` struct, every function here operates on arrays whose
 trailing axis is the component axis ``(..., 3)`` so the same code serves NumPy
